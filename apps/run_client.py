@@ -8,6 +8,12 @@ deltas to a run_server.py process.
 Usage:
     python apps/run_client.py --agent 0 --server localhost:7007 \
         --out /tmp/client0 [--frames 60] [--euroc /path/MH_01]
+
+Each process that opens a GPU reserves most of its memory at start. On
+one card, give the server and every client a share, e.g. 0.3 each for a
+server and two clients:
+    XLA_PYTHON_CLIENT_MEM_FRACTION=0.3 python apps/run_client.py ...
+or give each process a card of its own with CUDA_VISIBLE_DEVICES.
 """
 
 from __future__ import annotations
@@ -35,14 +41,17 @@ def main() -> None:
                          "server's)")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
+
+    from multi_orbslam3_jax.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
     host, port = args.server.rsplit(":", 1)
 
     import numpy as np
 
-    from multi_orbslam3_tpu import config as cfg
-    from multi_orbslam3_tpu.collab.client import CollabClient
-    from multi_orbslam3_tpu.collab.transport import SocketTransportClient
-    from multi_orbslam3_tpu.dataio import synthetic, tum
+    from multi_orbslam3_jax import config as cfg
+    from multi_orbslam3_jax.collab.client import CollabClient
+    from multi_orbslam3_jax.collab.transport import SocketTransportClient
+    from multi_orbslam3_jax.dataio import synthetic, tum
 
     if args.euroc:
         c = cfg.euroc_mono_inertial() if args.inertial else cfg.euroc_mono()
@@ -53,7 +62,7 @@ def main() -> None:
     tr = SocketTransportClient(args.agent, host, int(port))
     client = CollabClient(c, args.agent, tr, inertial=args.inertial)
     if args.euroc:
-        from multi_orbslam3_tpu.dataio import euroc
+        from multi_orbslam3_jax.dataio import euroc
         for item in euroc.EurocSequence(args.euroc, imu=args.inertial,
                                         max_frames=args.frames):
             if args.inertial:

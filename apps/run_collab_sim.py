@@ -33,18 +33,23 @@ def main() -> None:
     ap.add_argument("--inertial", default="",
                     help="comma-separated agent ids running mono-inertial "
                          "(the reference's IMU_MONOCULAR collab mode)")
+    ap.add_argument("--plot", action="store_true",
+                    help="also write a top-down map PNG (needs matplotlib)")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
+
+    from multi_orbslam3_jax.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
     inertial_ids = {int(x) for x in args.inertial.split(",") if x != ""}
 
     import numpy as np
 
-    from multi_orbslam3_tpu import config as cfg
-    from multi_orbslam3_tpu.collab.client import CollabClient
-    from multi_orbslam3_tpu.collab.server import CollabServer
-    from multi_orbslam3_tpu.collab.transport import InProcessTransport
-    from multi_orbslam3_tpu.dataio import synthetic, tum
-    from multi_orbslam3_tpu.eval import ate, viewer
+    from multi_orbslam3_jax import config as cfg
+    from multi_orbslam3_jax.collab.client import CollabClient
+    from multi_orbslam3_jax.collab.server import CollabServer
+    from multi_orbslam3_jax.collab.transport import InProcessTransport
+    from multi_orbslam3_jax.dataio import synthetic, tum
+    from multi_orbslam3_jax.eval import ate
 
     c = cfg.synthetic_mono()
     seqs = [synthetic.make_sequence(
@@ -89,9 +94,11 @@ def main() -> None:
             ate.camera_centers(est), ate.camera_centers(gt)), 4)
         tum.write_tum(os.path.join(args.out, f"agent{a}_traj.txt"),
                       cl.slam.keyframe_trajectory())
-    viewer.plot_map(server.m, os.path.join(args.out, "server_map.png"),
-                    title=f"server arena ({args.agents} agents, "
-                          f"{server.stats['merges']} merges)")
+    if args.plot:
+        from multi_orbslam3_jax.eval import viewer
+        viewer.plot_map(server.m, os.path.join(args.out, "server_map.png"),
+                        title=f"server arena ({args.agents} agents, "
+                              f"{server.stats['merges']} merges)")
     with open(os.path.join(args.out, "report.json"), "w") as f:
         json.dump(report, f, indent=2)
     print(json.dumps(report))

@@ -7,7 +7,13 @@ corrections back. Pair with apps/run_client.py processes.
 
 Usage:
     python apps/run_server.py --port 7007 --agents 2 --out /tmp/server \
-        [--duration 120]
+        [--duration 120] [--plot]
+
+Each process that opens a GPU reserves most of its memory at start. On
+one card, give the server and every client a share, e.g. 0.3 each for a
+server and two clients:
+    XLA_PYTHON_CLIENT_MEM_FRACTION=0.3 python apps/run_server.py ...
+or give each process a card of its own with CUDA_VISIBLE_DEVICES.
 """
 
 from __future__ import annotations
@@ -34,14 +40,18 @@ def main() -> None:
     ap.add_argument("--small", action="store_true",
                     help="reduced config for smoke runs (must match the "
                          "clients')")
+    ap.add_argument("--plot", action="store_true",
+                    help="also write a top-down map PNG (needs matplotlib)")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
 
-    from multi_orbslam3_tpu import config as cfg
-    from multi_orbslam3_tpu.collab.server import CollabServer
-    from multi_orbslam3_tpu.collab.transport import SocketTransportServer
-    from multi_orbslam3_tpu.dataio import checkpoint, tum
-    from multi_orbslam3_tpu.eval import viewer
+    from multi_orbslam3_jax.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
+
+    from multi_orbslam3_jax import config as cfg
+    from multi_orbslam3_jax.collab.server import CollabServer
+    from multi_orbslam3_jax.collab.transport import SocketTransportServer
+    from multi_orbslam3_jax.dataio import checkpoint, tum
 
     c = cfg.small_synthetic() if args.small else cfg.synthetic_mono()
     tr = SocketTransportServer(port=args.port)
@@ -66,8 +76,10 @@ def main() -> None:
     checkpoint.save_map(os.path.join(args.out, "server_map.npz"), server.m,
                         extra={"kf_map": server.kf_map,
                                "mp_map": server.mp_map})
-    viewer.plot_map(server.m, os.path.join(args.out, "server_map.png"),
-                    title="server arena")
+    if args.plot:
+        from multi_orbslam3_jax.eval import viewer
+        viewer.plot_map(server.m, os.path.join(args.out, "server_map.png"),
+                        title="server arena")
     # server keyframe trajectory per agent (SaveKeyFrameTrajectoryEuRoC)
     import numpy as np
     valid = np.array(server.m.kf_valid)

@@ -11,7 +11,7 @@ snapshot, prints one JSON report line with fps / stats / ATE.
 
 Usage:
     python apps/run_slam.py --out /tmp/run1 --sensor imu_stereo \\
-        [--euroc /path/to/MH_01] [--frames 200]
+        [--euroc /path/to/MH_01] [--frames 200] [--plot]
 """
 
 from __future__ import annotations
@@ -30,24 +30,24 @@ SENSORS = ("mono", "mono_inertial", "stereo", "imu_stereo", "rgbd",
 
 def build_system(sensor: str, c, enable_loop_closing: bool):
     if sensor == "mono":
-        from multi_orbslam3_tpu.pipeline.system import MonoSlam
+        from multi_orbslam3_jax.pipeline.system import MonoSlam
         return MonoSlam(c, enable_loop_closing=enable_loop_closing)
     if sensor == "mono_inertial":
-        from multi_orbslam3_tpu.pipeline.inertial_system import \
+        from multi_orbslam3_jax.pipeline.inertial_system import \
             MonoInertialSlam
         return MonoInertialSlam(c, enable_loop_closing=enable_loop_closing)
     if sensor == "stereo":
-        from multi_orbslam3_tpu.pipeline.stereo_system import StereoSlam
+        from multi_orbslam3_jax.pipeline.stereo_system import StereoSlam
         return StereoSlam(c, enable_loop_closing=enable_loop_closing)
     if sensor == "rgbd":
-        from multi_orbslam3_tpu.pipeline.stereo_system import RGBDSlam
+        from multi_orbslam3_jax.pipeline.stereo_system import RGBDSlam
         return RGBDSlam(c, enable_loop_closing=enable_loop_closing)
     if sensor == "imu_stereo":
-        from multi_orbslam3_tpu.pipeline.stereo_inertial_system import \
+        from multi_orbslam3_jax.pipeline.stereo_inertial_system import \
             StereoInertialSlam
         return StereoInertialSlam(c, enable_loop_closing=enable_loop_closing)
     if sensor == "imu_rgbd":
-        from multi_orbslam3_tpu.pipeline.stereo_inertial_system import \
+        from multi_orbslam3_jax.pipeline.stereo_inertial_system import \
             RGBDInertialSlam
         return RGBDInertialSlam(c, enable_loop_closing=enable_loop_closing)
     raise ValueError(sensor)
@@ -64,15 +64,20 @@ def main() -> None:
     ap.add_argument("--localization", default=None, metavar="MAP_NPZ",
                     help="localization-only mode against a frozen map "
                          "checkpoint (ActivateLocalizationMode analog)")
+    ap.add_argument("--plot", action="store_true",
+                    help="also write a top-down map PNG (needs matplotlib)")
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
 
+    from multi_orbslam3_jax.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
+
     import numpy as np
 
-    from multi_orbslam3_tpu import config as cfg
-    from multi_orbslam3_tpu.dataio import synthetic, tum
-    from multi_orbslam3_tpu.eval import ate, viewer
-    from multi_orbslam3_tpu.utils.timing import GLOBAL_TIMER
+    from multi_orbslam3_jax import config as cfg
+    from multi_orbslam3_jax.dataio import synthetic, tum
+    from multi_orbslam3_jax.eval import ate
+    from multi_orbslam3_jax.utils.timing import GLOBAL_TIMER
 
     sensor = args.sensor
     inertial = sensor in ("mono_inertial", "imu_stereo", "imu_rgbd")
@@ -81,7 +86,7 @@ def main() -> None:
 
     gt = None
     if args.euroc:
-        from multi_orbslam3_tpu.dataio import euroc
+        from multi_orbslam3_jax.dataio import euroc
         if stereoish:
             if sensor in ("rgbd", "imu_rgbd"):
                 raise SystemExit("EuRoC has no RGBD stream")
@@ -178,14 +183,16 @@ def main() -> None:
 
     tum.write_tum(os.path.join(args.out, "KeyFrameTrajectory.txt"),
                   slam.keyframe_trajectory())
-    viewer.plot_map(slam.m, os.path.join(args.out, "map.png"),
-                    title=f"{sensor} map ({n} frames)",
-                    gt_centers=ate.camera_centers(gt) if gt is not None
-                    else None)
+    if args.plot:
+        from multi_orbslam3_jax.eval import viewer
+        viewer.plot_map(slam.m, os.path.join(args.out, "map.png"),
+                        title=f"{sensor} map ({n} frames)",
+                        gt_centers=ate.camera_centers(gt) if gt is not None
+                        else None)
     report = {"sensor": sensor, "frames": n, "fps": round(n / wall, 2),
               "stats": slam.stats, "timing": GLOBAL_TIMER.summary()}
     if gt is not None:
-        from multi_orbslam3_tpu.eval.benchmarks import _ate_over_ok
+        from multi_orbslam3_jax.eval.benchmarks import _ate_over_ok
         skip = slam.stats.get("imu_init_frame", -1) + 2 if inertial else 0
         acc = _ate_over_ok(slam.trajectory, states, gt, skip_head=skip,
                            with_scale=not stereoish)

@@ -35,11 +35,11 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from multi_orbslam3_tpu import config as cfg
-    from multi_orbslam3_tpu.bow import vocabulary as vocm
-    from multi_orbslam3_tpu.dataio import synthetic
-    from multi_orbslam3_tpu.frontend import extractor
-    from multi_orbslam3_tpu.utils.cache import enable_compilation_cache
+    from multi_orbslam3_jax import config as cfg
+    from multi_orbslam3_jax.bow import vocabulary as vocm
+    from multi_orbslam3_jax.dataio import synthetic
+    from multi_orbslam3_jax.frontend import extractor
+    from multi_orbslam3_jax.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     c = cfg.synthetic_mono()

@@ -15,12 +15,13 @@ results for the CORE configs:
   total_fps_wall (frames/wall incl. compiles) and total_fps_tail
   (steady state over the tail two-thirds; collab's headline total_fps).
 
-The headline JSON is printed IMMEDIATELY after the core configs so a
-driver-side timeout can never lose the scored result (BENCH_r02/r03 both
-timed out before the old end-of-run print). Heavier studies — 4-agent
-collab, GBA iters/s at arena scale, kernel micro-bench, the virtual-mesh
-GBA scaling sweep, EuRoC (if a dataset exists) — run only under
-MO3_BENCH_FULL=1 and report on stderr, keeping stdout single-line.
+The JSON line is re-printed after every config, so a run cut by a time
+limit keeps the configs that finished. Every line names the device it
+ran on and each card's name and power limit (nvidia-smi); without a
+GPU the bench exits non-zero before measuring
+anything. Extra studies — GBA iters/s on the 2-agent arena, the kernel
+micro-bench, EuRoC (if a dataset exists) — run only under
+MO3_BENCH_FULL=1 and report on stderr, keeping stdout to the JSON lines.
 
 The reference's validation story is trajectory export + ATE
 (src/ServerSystem.cc:134-185); this bench reproduces it in-process.
@@ -34,10 +35,13 @@ import sys
 
 
 def main() -> None:
-    from multi_orbslam3_tpu.utils.cache import enable_compilation_cache
+    from multi_orbslam3_jax.eval import device
+    dev = {**device.require_gpu(),
+           "cards": device.parse_cards(device.query_cards())}
+    from multi_orbslam3_jax.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from multi_orbslam3_tpu.eval import benchmarks as B
+    from multi_orbslam3_jax.eval import benchmarks as B
 
     def log(msg):
         print(msg, file=sys.stderr, flush=True)
@@ -45,16 +49,15 @@ def main() -> None:
     configs = {}
 
     def emit():
-        # re-printed after every core config: the driver parses the LAST
-        # JSON line on stdout, so a timeout mid-config can no longer lose
-        # the configs that already finished (BENCH_r02/r03 both scored
-        # nothing because the single print sat after the slowest config).
+        # re-printed after every config: the LAST JSON line on stdout
+        # is the result, so a timeout mid-config keeps finished configs
         fps = configs.get("mono", {}).get("fps", 0.0)
         print(json.dumps({
             "metric": "tracked_frames_per_s_per_chip",
             "value": fps,
             "unit": "frames/s",
             "vs_baseline": round(fps / 20.0, 3),
+            "device": dev,
             "configs": configs,
         }), flush=True)
 
@@ -78,18 +81,14 @@ def main() -> None:
         configs["mini_asl"] = {"error": str(e)[:300]}
     emit()
     log("bench: collab 2-agent (150 frames, GBA on, single pass)...")
-    # single pass: the two-pass warmup protocol doubled the slowest
-    # config and pushed the whole bench past the driver budget
-    # (BENCH_r03 rc=124); steady-state fps comes from the tail frames
+    # single pass: the two-pass warmup protocol doubles the slowest
+    # config; steady-state fps comes from the tail frames
     configs["collab_2agent"], server = B.bench_collab(
         n_agents=2, warmup=False)
     log(f"  -> {configs['collab_2agent']}")
     emit()
-    # ---- heavy configs, IN the scored artifact (round-4 VERDICT Next
-    # #4: 4-agent + arena-scale GBA + vocabulary selectivity had sat
-    # behind MO3_BENCH_FULL and were never captured). Budget order:
-    # cheapest first, emit() after each so a driver timeout keeps
-    # whatever finished.
+    # heavier configs, cheapest first, emit() after each so a timeout
+    # keeps whatever finished
     log("bench: global BA at arena scale (1024 KF / 32k MP)...")
     try:
         configs["gba_large"] = B.bench_gba_large()
@@ -121,12 +120,10 @@ def main() -> None:
     log("bench[full]: global BA iters/s (2-agent arena)...")
     extra["gba"] = B.bench_gba(server)
     log(f"  -> {extra['gba']}")
-    log("bench[full]: frontend kernel micro-bench (pallas vs XLA)...")
+    log("bench[full]: frontend kernels vs NumPy references...")
     extra["kernels"] = B.bench_kernels()
     log(f"  -> {extra['kernels']}")
-    log("bench[full]: distributed GBA scaling sweep (virtual CPU mesh)...")
-    extra["gba_scaling"] = _gba_scaling_sweep(log)
-    log(f"  -> {extra['gba_scaling']}")
+    extra["codec_host"] = B.bench_codec()
 
     euroc_root = os.environ.get(
         "EUROC_ROOT", os.path.join(os.path.dirname(__file__),
@@ -136,69 +133,6 @@ def main() -> None:
         extra["euroc_mono"] = euroc
 
     log("FULL_RESULTS " + json.dumps(extra))
-
-
-def _gba_scaling_sweep(log):
-    """Distributed-GBA behavior on the virtual CPU mesh (subprocess per
-    N; the only multi-device surface on a 1-chip machine).
-
-    HONESTY NOTE: virtual devices PARTITION one CPU's cores, so
-    wall-clock speedup at N>1 is structurally impossible here — any
-    "efficiency" number from this machine would measure thread
-    contention, not ICI scaling. What this sweep does measure:
-
-    - iters/s of the SAME shard_map program at N=1/2/4/8 — flat means
-      the collective cost stays O(Kc*6) per CG iteration (the
-      landmark-aligned decomposition), not O(P);
-    - shard_overhead = t_sharded(1 dev) / t_single(1 dev) — the cost of
-      entering shard_map at all;
-    - the analytic per-CG-iteration collective traffic, which is what
-      actually rides the ICI on a pod.
-
-    True ≥0.8-efficiency measurement needs N physical chips; the driver
-    dryrun validates this exact code path multi-device."""
-    import subprocess
-    out = {}
-    rate1 = None
-    for n in (1, 2, 4, 8):
-        env = dict(os.environ)
-        env["JAX_PLATFORMS"] = "cpu"
-        env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                            + f" --xla_force_host_platform_device_count={n}"
-                            ).strip()
-        try:
-            r = subprocess.run(
-                [sys.executable, "-m",
-                 "multi_orbslam3_tpu.eval.gba_scaling"],
-                capture_output=True, text=True, timeout=900, env=env,
-                cwd=os.path.dirname(os.path.abspath(__file__)))
-            line = [ln for ln in r.stdout.strip().splitlines()
-                    if ln.startswith("{")][-1]
-            rec = json.loads(line)
-            rate = rec["gba_iters_per_s"]
-            if n == 1:
-                rate1 = rate
-                if rec.get("single_path_iters_per_s"):
-                    out["single_path_iters_per_s"] = \
-                        rec["single_path_iters_per_s"]
-                    out["shard_overhead_1dev"] = round(
-                        rec["single_path_iters_per_s"] / rate, 2)
-            out[f"iters_per_s_{n}dev_sharded"] = rate
-            if rate1:
-                out[f"rate_vs_1dev_{n}dev"] = round(rate / rate1, 3)
-        except Exception as e:  # noqa: BLE001
-            out[f"error_{n}dev"] = str(e)[:200]
-    # analytic collective traffic per CG iteration (what rides the ICI):
-    # landmark-aligned -> one (Kc,6) psum; naive obs-sharding would add
-    # a (P,3) psum per matvec
-    Kc, P = 48, 3072     # the sweep arena (make_server_arena defaults)
-    out["collective_bytes_per_cg_iter"] = Kc * 6 * 4
-    out["collective_bytes_naive"] = (Kc * 6 + P * 3) * 4
-    out["virtual_mesh_note"] = (
-        "virtual CPU devices share one CPU's cores: speedup at N>1 is "
-        "structurally impossible on this machine; flat iters/s across N "
-        "demonstrates O(Kc) collective cost. ICI scaling needs a pod.")
-    return out
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 // mo3 wire codec: flat array-table serialization for MapDelta payloads.
 //
-// TPU-native replacement for the reference's ROS message serialization
+// Replacement for the reference's ROS message serialization
 // (hand-written field-by-field packing in the ConvertToMessage methods,
 // reference src/Communicator.cc + msg/*.msg). The collaborative layer
 // ships struct-of-arrays deltas, so the natural wire format is a table
@@ -19,9 +19,10 @@
 // story: the client outbox resends unacked deltas, so a dropped frame
 // costs one resend cycle, never a corrupted map).
 //
-// Build: native/build.sh  ->  native/libmo3codec.so  (ctypes binding in
-// multi_orbslam3_tpu/collab/codec.py, which also carries a pure-Python
-// fallback implementing the identical format).
+// Build: multi_orbslam3_jax/collab/codec.py compiles this file on first
+// use into native/libmo3codec-<source hash>.so and binds it with ctypes;
+// it also carries a pure-Python fallback implementing the identical
+// format.
 
 #include <zlib.h>
 

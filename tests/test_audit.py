@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.map import mapstate as ms
-from multi_orbslam3_tpu.map.audit import (EssentialGraphError,
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.map import mapstate as ms
+from multi_orbslam3_jax.map.audit import (EssentialGraphError,
                                           check_essential_graph)
 
 
@@ -26,7 +26,7 @@ def _small_config():
 
 
 def _healthy_map(n_frames=25):
-    from multi_orbslam3_tpu.pipeline.system import MonoSlam
+    from multi_orbslam3_jax.pipeline.system import MonoSlam
     c = _small_config()
     seq = synthetic.make_sequence(c, n_frames=n_frames, n_points=500,
                                   seed=3, trajectory="forward")
@@ -90,9 +90,9 @@ def test_server_merge_and_cull_keep_graph_sane():
     """The auditor wired into the collaborative flow: after ingest,
     cross-agent merge, culling and GBA the server arena's essential
     graph stays valid (reference LoopClosing.cc:1097-1099 asserts)."""
-    from multi_orbslam3_tpu.collab.client import CollabClient
-    from multi_orbslam3_tpu.collab.server import CollabServer
-    from multi_orbslam3_tpu.collab.transport import InProcessTransport
+    from multi_orbslam3_jax.collab.client import CollabClient
+    from multi_orbslam3_jax.collab.server import CollabServer
+    from multi_orbslam3_jax.collab.transport import InProcessTransport
     c = _small_config()
     F = 30
     seq0 = synthetic.make_sequence(c, n_frames=F, n_points=600, seed=11,

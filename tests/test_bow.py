@@ -2,8 +2,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu.bow import database as dbm
-from multi_orbslam3_tpu.bow import vocabulary as vocm
+from multi_orbslam3_jax.bow import database as dbm
+from multi_orbslam3_jax.bow import vocabulary as vocm
 
 
 @pytest.fixture(scope="module")
@@ -108,10 +108,10 @@ class TestTrainedVocabularyRecall:
 
     def test_same_place_scores_above_different_place(self):
         import os
-        from multi_orbslam3_tpu import config as cfg
-        from multi_orbslam3_tpu.bow import vocabulary as vocm
-        from multi_orbslam3_tpu.dataio import synthetic
-        from multi_orbslam3_tpu.frontend import extractor
+        from multi_orbslam3_jax import config as cfg
+        from multi_orbslam3_jax.bow import vocabulary as vocm
+        from multi_orbslam3_jax.dataio import synthetic
+        from multi_orbslam3_jax.frontend import extractor
         path = vocm._bundled_path(10, 4)
         if not os.path.exists(path):
             pytest.skip("bundled vocabulary not trained yet")

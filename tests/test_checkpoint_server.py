@@ -7,7 +7,7 @@ import os
 
 import numpy as np
 
-from multi_orbslam3_tpu.eval.gba_scaling import make_server_arena
+from multi_orbslam3_jax.eval.gba_scaling import make_server_arena
 
 
 def test_checkpoint_roundtrip(tmp_path):

@@ -6,7 +6,7 @@ import json
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu.collab import codec, protocol
+from multi_orbslam3_jax.collab import codec, protocol
 
 
 def _table():
@@ -64,7 +64,7 @@ def test_peek_meta():
     import pytest as _pytest
     with _pytest.raises(ValueError):
         codec.peek_meta(bytes(bad))
-    from multi_orbslam3_tpu.collab import protocol
+    from multi_orbslam3_jax.collab import protocol
     d = protocol.MapDelta(agent=1, seq=42)
     assert protocol.peek_seq(d.to_bytes()) == 42
     with _pytest.raises(ValueError):

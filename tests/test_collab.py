@@ -2,15 +2,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.collab import protocol
-from multi_orbslam3_tpu.collab.client import CollabClient
-from multi_orbslam3_tpu.collab.server import CollabServer
-from multi_orbslam3_tpu.collab.transport import (InProcessTransport,
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.collab import protocol
+from multi_orbslam3_jax.collab.client import CollabClient
+from multi_orbslam3_jax.collab.server import CollabServer
+from multi_orbslam3_jax.collab.transport import (InProcessTransport,
                                                  SocketTransportClient,
                                                  SocketTransportServer)
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
 
 
 def small_config():

@@ -11,12 +11,12 @@ src/ServerSystem.cc:134-185)."""
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.collab.client import CollabClient
-from multi_orbslam3_tpu.collab.server import CollabServer
-from multi_orbslam3_tpu.collab.transport import InProcessTransport
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.collab.client import CollabClient
+from multi_orbslam3_jax.collab.server import CollabServer
+from multi_orbslam3_jax.collab.transport import InProcessTransport
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
 
 
 @pytest.mark.slow

@@ -12,12 +12,12 @@ verification cascade / welding BA / GBA all resolve per-KF cameras.
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.collab.client import CollabClient
-from multi_orbslam3_tpu.collab.server import CollabServer
-from multi_orbslam3_tpu.collab.transport import InProcessTransport
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.collab.client import CollabClient
+from multi_orbslam3_jax.collab.server import CollabServer
+from multi_orbslam3_jax.collab.transport import InProcessTransport
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
 
 
 def _small(c):
@@ -103,7 +103,7 @@ def test_kb8_and_pinhole_agents_merge():
     # re-gauges one agent's live frame mid-sequence, so evaluate each
     # gauge-consistent SEGMENT (before the first correction, and after
     # it + settling) rather than the mixed-gauge whole
-    from multi_orbslam3_tpu.pipeline.system import TrackState
+    from multi_orbslam3_jax.pipeline.system import TrackState
     for a, (cl, seq, states) in enumerate(
             ((c0, seq0, states0), (c1, seq1, states1))):
         ok = [i for i, s in enumerate(states) if s == TrackState.OK]

@@ -14,12 +14,12 @@ visual-inertial ladder the reference runs for IMU_MONOCULAR clients:
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.collab.client import CollabClient
-from multi_orbslam3_tpu.collab.server import CollabServer
-from multi_orbslam3_tpu.collab.transport import InProcessTransport
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.collab.client import CollabClient
+from multi_orbslam3_jax.collab.server import CollabServer
+from multi_orbslam3_jax.collab.transport import InProcessTransport
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
 
 
 def _config():
@@ -134,7 +134,7 @@ def test_preintegration_uplink_and_server_inertial_ba():
     velocity inside KF messages) and its three server consumers:
     chain bookkeeping, MergePrevious-on-erase (Communicator.cc:319-341),
     and the FullInertialBA analog (Optimizer.cc:449)."""
-    from multi_orbslam3_tpu.imu import preintegration as pre
+    from multi_orbslam3_jax.imu import preintegration as pre
 
     c = _config()
     F = 60
@@ -191,7 +191,7 @@ def test_preintegration_uplink_and_server_inertial_ba():
     pose_after = np.asarray(server.m.kf_pose)
     assert np.all(np.isfinite(pose_after[own[own != mid]]))
     # accuracy preserved (or improved) vs ground truth keyframe poses
-    from multi_orbslam3_tpu.eval import ate as ate_m
+    from multi_orbslam3_jax.eval import ate as ate_m
     kf_ts = np.asarray(server.m.kf_timestamp)[own[own != mid]]
     idx = [int(np.argmin(np.abs(np.asarray(seq.timestamps) - t)))
            for t in kf_ts]

@@ -1,9 +1,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orbslam3_tpu.frontend.extractor import FrameFeatures
-from multi_orbslam3_tpu.map import mapstate as ms
-from multi_orbslam3_tpu.pipeline import culling
+from multi_orbslam3_jax.frontend.extractor import FrameFeatures
+from multi_orbslam3_jax.map import mapstate as ms
+from multi_orbslam3_jax.pipeline import culling
 
 
 def _feats(n=16, seed=0):

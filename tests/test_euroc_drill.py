@@ -10,8 +10,8 @@ fix (ADVICE r2): all internal time is sequence-relative."""
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import euroc, mini_asl, synthetic
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import euroc, mini_asl, synthetic
 
 
 def _write_dataset(tmp_path, imu=False, n_frames=36):
@@ -43,12 +43,12 @@ def test_loader_reads_asl_tree(tmp_path):
 def test_bench_euroc_end_to_end(tmp_path):
     """bench_euroc (the gated EuRoC benchmark) runs against the on-disk
     tree and produces a sane ATE from the ground-truth csv."""
-    from multi_orbslam3_tpu.eval import benchmarks as B
+    from multi_orbslam3_jax.eval import benchmarks as B
     c, seq, root = _write_dataset(tmp_path, n_frames=36)
 
     # bench_euroc builds its own (752x480) config; point it at our config
     # geometry instead by calling the same code path with an override
-    import multi_orbslam3_tpu.eval.benchmarks as bm
+    import multi_orbslam3_jax.eval.benchmarks as bm
 
     orig = bm._euroc_scale_config
     bm._euroc_scale_config = lambda **kw: cfg.synthetic_mono(
@@ -71,7 +71,7 @@ def test_mono_inertial_epoch_timestamps(tmp_path):
     epoch nanosecond stamps — the float32 kf_timestamp quantization at
     1.4e9 s (128 s spacing) made bootstrap-window selection degenerate
     before the relative-time fix (ADVICE r2 medium)."""
-    from multi_orbslam3_tpu.pipeline.inertial_system import MonoInertialSlam
+    from multi_orbslam3_jax.pipeline.inertial_system import MonoInertialSlam
     # 60 frames @ 20 Hz = 2.95 s — the VI init gate needs >= 2.0 s of
     # integration time (the reference's ~2 s mono-inertial minimum,
     # src/LocalMapping.cc:1390); a 36-frame/1.75 s drill is structurally

@@ -5,11 +5,8 @@ ros/launch/client_and_server.launch)."""
 import os
 
 import numpy as np
-import pytest
 
-from multi_orbslam3_tpu.dataio import euroc
-
-PIL = pytest.importorskip("PIL.Image")
+from multi_orbslam3_jax.dataio import euroc, png
 
 
 def _make_fake_euroc(root, n_frames=5, drop_right=1):
@@ -46,8 +43,7 @@ distortion_coefficients: [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
             rows.append(f"{ts},{name}")
             yy, xx = np.mgrid[0:480, 0:752]
             img = ((xx * 0.3 + yy * 0.2 + i * 10) % 255).astype(np.uint8)
-            PIL.fromarray(img, mode="L").save(
-                os.path.join(d, "data", name))
+            png.write_gray(os.path.join(d, "data", name), img)
         with open(os.path.join(d, "data.csv"), "w") as f:
             f.write("\n".join(rows) + "\n")
     # IMU: 200 Hz

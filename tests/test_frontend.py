@@ -2,9 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.frontend import extractor, fast, matcher, orb
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.frontend import extractor, fast, matcher, orb
 
 
 @pytest.fixture(scope="module")

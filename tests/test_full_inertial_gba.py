@@ -21,12 +21,12 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.collab.server import CollabServer
-from multi_orbslam3_tpu.collab.transport import InProcessTransport
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
-from multi_orbslam3_tpu.imu import preintegration as pre
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.collab.server import CollabServer
+from multi_orbslam3_jax.collab.transport import InProcessTransport
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
+from multi_orbslam3_jax.imu import preintegration as pre
 
 
 def _config():

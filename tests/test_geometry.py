@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu.geometry import so3, se3, sim3, camera, triangulation
+from multi_orbslam3_jax.geometry import so3, se3, sim3, camera, triangulation
 
 
 def rand_rotvec(key, n=8, scale=1.0):

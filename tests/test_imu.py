@@ -2,9 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.geometry import so3
-from multi_orbslam3_tpu.imu import preintegration as pre
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.geometry import so3
+from multi_orbslam3_jax.imu import preintegration as pre
 
 
 def calib():

@@ -3,10 +3,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.geometry import camera, se3, so3
-from multi_orbslam3_tpu.imu import preintegration as pre
-from multi_orbslam3_tpu.opt import inertial_ba, inertial_init, local_ba
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.geometry import camera, se3, so3
+from multi_orbslam3_jax.imu import preintegration as pre
+from multi_orbslam3_jax.opt import inertial_ba, inertial_init, local_ba
 
 G = 9.81
 g_w = np.array([0.0, 0.0, -G])
@@ -171,7 +171,7 @@ class TestVIPoseOpt:
         jnp.asarray([0.10, 0.02, -0.03])))
 
     def _setup(self, seed=0, n_pts=60, px_noise=0.0):
-        from multi_orbslam3_tpu.opt import vi_pose_opt
+        from multi_orbslam3_jax.opt import vi_pose_opt
         K = camera.PinholeK(*[jnp.float32(x) for x in
                               (400.0, 400.0, 320.0, 240.0)])
         kf_R, kf_p, kf_v, acc_w, gyr_w, dt_w = simulate(n_kf=4, seed=seed)

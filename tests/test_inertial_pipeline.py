@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
-from multi_orbslam3_tpu.pipeline.inertial_system import MonoInertialSlam
-from multi_orbslam3_tpu.pipeline.system import TrackState
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
+from multi_orbslam3_jax.pipeline.inertial_system import MonoInertialSlam
+from multi_orbslam3_jax.pipeline.system import TrackState
 
 
 def vi_config():
@@ -66,7 +66,7 @@ class TestMonoInertialTbc:
         """E2E with rotated + offset camera-IMU extrinsics (EuRoC's Tbc is
         far from identity; reference threads it everywhere,
         include/ImuTypes.h:111)."""
-        from multi_orbslam3_tpu.geometry import se3, so3
+        from multi_orbslam3_jax.geometry import se3, so3
         import jax.numpy as jnp
         T_bc = np.asarray(se3.make(
             so3.exp(jnp.asarray([0.05, -0.1, 0.6])),

@@ -3,8 +3,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orbslam3_tpu.dataio import checkpoint, tum
-from multi_orbslam3_tpu.map import mapstate as ms
+from multi_orbslam3_jax.dataio import checkpoint, tum
+from multi_orbslam3_jax.map import mapstate as ms
 
 
 class TestCheckpoint:
@@ -22,7 +22,7 @@ class TestCheckpoint:
 
 class TestTum:
     def test_roundtrip(self, tmp_path):
-        from multi_orbslam3_tpu.geometry import se3
+        from multi_orbslam3_jax.geometry import se3
         T = np.asarray(se3.exp(jnp.asarray([0.1, -0.2, 0.3, 1.0, 2.0, 3.0])))
         path = str(tmp_path / "traj.txt")
         tum.write_tum(path, [(1.5, T), (2.0, np.eye(4, dtype=np.float32))])

@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
-from multi_orbslam3_tpu.pipeline.system import MonoSlam, TrackState
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
+from multi_orbslam3_jax.pipeline.system import MonoSlam, TrackState
 
 
 def kb8_config():
@@ -26,7 +26,7 @@ def kb8_config():
 class TestKB8Unprojection:
     def test_roundtrip_to_ideal_pinhole(self):
         import jax.numpy as jnp
-        from multi_orbslam3_tpu.geometry import camera as camm
+        from multi_orbslam3_jax.geometry import camera as camm
         c = kb8_config().camera
         K = camm.intrinsics_from_config(c)
         kb = jnp.asarray(c.kb)

@@ -5,10 +5,10 @@ src/ClientSystem.cc:146-157,214 — LocalMapping paused, VO-only)."""
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import checkpoint, synthetic
-from multi_orbslam3_tpu.eval import ate
-from multi_orbslam3_tpu.pipeline.system import MonoSlam, TrackState
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import checkpoint, synthetic
+from multi_orbslam3_jax.eval import ate
+from multi_orbslam3_jax.pipeline.system import MonoSlam, TrackState
 
 
 def _config():

@@ -3,11 +3,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu.frontend.extractor import FrameFeatures
-from multi_orbslam3_tpu.geometry import se3, sim3
-from multi_orbslam3_tpu.map import mapstate as ms
-from multi_orbslam3_tpu.opt import sim3_solve
-from multi_orbslam3_tpu.pipeline import loop_closing
+from multi_orbslam3_jax.frontend.extractor import FrameFeatures
+from multi_orbslam3_jax.geometry import se3, sim3
+from multi_orbslam3_jax.map import mapstate as ms
+from multi_orbslam3_jax.opt import sim3_solve
+from multi_orbslam3_jax.pipeline import loop_closing
 
 
 class TestHornSim3:
@@ -163,7 +163,7 @@ def _projected_kf(m, K, T_cw, pts_world, desc, ts, parent=-1, n_feat=64):
     """Add a KF whose features are the true projections of pts_world, plus
     its own landmark entries observed by it (duplicate-entry style, the
     situation right before a loop fusion)."""
-    from multi_orbslam3_tpu.geometry import camera as camm
+    from multi_orbslam3_jax.geometry import camera as camm
     uv = np.asarray(camm.project(K, se3.apply(jnp.asarray(T_cw)[None],
                                               jnp.asarray(pts_world))))
     P = pts_world.shape[0]
@@ -194,7 +194,7 @@ class TestVerificationCascade:
     false-positives but the projection re-check rejects."""
 
     def _setup(self, adversarial: bool):
-        from multi_orbslam3_tpu.geometry import camera as camm
+        from multi_orbslam3_jax.geometry import camera as camm
         rng = np.random.RandomState(3)
         K = camm.PinholeK(*[jnp.float32(x) for x in
                             (300.0, 300.0, 160.0, 120.0)])

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orbslam3_tpu.frontend.extractor import FrameFeatures
-from multi_orbslam3_tpu.map import mapstate as ms
+from multi_orbslam3_jax.frontend.extractor import FrameFeatures
+from multi_orbslam3_jax.map import mapstate as ms
 
 
 def _feats(n=16, seed=0):
@@ -166,8 +166,8 @@ class TestPointStats:
 
 class TestFuse:
     def test_fuse_duplicates_and_attach(self):
-        from multi_orbslam3_tpu.geometry import camera as cam
-        from multi_orbslam3_tpu.pipeline import local_mapping
+        from multi_orbslam3_jax.geometry import camera as cam
+        from multi_orbslam3_jax.pipeline import local_mapping
         K = cam.PinholeK(fx=100.0, fy=100.0, cx=50.0, cy=50.0)
         n = 8
         m = ms.empty_map(4, 16, n)
@@ -244,7 +244,7 @@ class TestAtlas:
         assert not bool(m.mp_valid[0])
 
     def test_merge_active_into(self):
-        from multi_orbslam3_tpu.geometry import sim3
+        from multi_orbslam3_jax.geometry import sim3
         m = ms.empty_map(4, 8, 4)
         no = jnp.full((4,), ms.NO_MP, jnp.int32)
         m, _ = ms.add_keyframe(m, _feats(n=4), jnp.eye(4), 0.0, no, -1)

@@ -16,10 +16,10 @@ these drills assert, end-to-end, with the Sim3-continuity retry
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
-from multi_orbslam3_tpu.pipeline.system import MonoSlam, TrackState
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
+from multi_orbslam3_jax.pipeline.system import MonoSlam, TrackState
 
 
 @pytest.mark.slow

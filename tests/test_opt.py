@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu.geometry import camera, se3
-from multi_orbslam3_tpu.opt import local_ba, pose_opt
+from multi_orbslam3_jax.geometry import camera, se3
+from multi_orbslam3_jax.opt import local_ba, pose_opt
 
 
 K = camera.PinholeK(*[jnp.float32(v) for v in (400.0, 400.0, 320.0, 240.0)])
@@ -95,7 +95,7 @@ class TestBundleAdjust:
         return poses_true, pts_true, poses0, pts0, fixed, obs
 
     def test_grouped_assembly_matches_scatter(self):
-        """grouped=True (one-hot matmul assembly, the TPU fast path) must
+        """grouped=True (one-hot matmul assembly) must
         reproduce the scatter-path results bit-for-bit-ish on a grouped
         observation layout."""
         _, _, poses0, pts0, fixed, obs = self._window(seed=4)
@@ -158,8 +158,8 @@ class TestBundleAdjust:
 class TestPnP:
     def test_ransac_pnp_with_outliers(self):
         import jax
-        from multi_orbslam3_tpu.geometry import camera, se3
-        from multi_orbslam3_tpu.opt import pnp
+        from multi_orbslam3_jax.geometry import camera, se3
+        from multi_orbslam3_jax.opt import pnp
         K = camera.PinholeK(*[jnp.float32(v) for v in (400., 400., 160., 120.)])
         rng = np.random.RandomState(0)
         n = 100

@@ -3,12 +3,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
-from multi_orbslam3_tpu.geometry import camera, se3
-from multi_orbslam3_tpu.pipeline import initializer
-from multi_orbslam3_tpu.pipeline.system import MonoSlam, TrackState
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
+from multi_orbslam3_jax.geometry import camera, se3
+from multi_orbslam3_jax.pipeline import initializer
+from multi_orbslam3_jax.pipeline.system import MonoSlam, TrackState
 
 K = camera.PinholeK(*[jnp.float32(v) for v in (400.0, 400.0, 160.0, 120.0)])
 

@@ -4,7 +4,7 @@ the same calibration data, ORB-SLAM3 EuRoC.yaml LEFT/RIGHT R,P)."""
 
 import numpy as np
 
-from multi_orbslam3_tpu.dataio import rectify
+from multi_orbslam3_jax.dataio import rectify
 
 
 def _project_raw(K, D, R, t, pts):
@@ -24,7 +24,7 @@ def _calib():
     # right camera: 11cm baseline with a small rotation (EuRoC-like)
     import jax.numpy as jnp
 
-    from multi_orbslam3_tpu.geometry import so3
+    from multi_orbslam3_jax.geometry import so3
     R_10 = np.asarray(so3.exp(jnp.asarray([0.004, -0.007, 0.003])))
     t_10 = np.array([-0.110, 0.0004, -0.0008])
     T_10 = np.eye(4)

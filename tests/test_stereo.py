@@ -2,12 +2,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
-from multi_orbslam3_tpu.frontend import extractor, stereo
-from multi_orbslam3_tpu.pipeline.stereo_system import RGBDSlam, StereoSlam
-from multi_orbslam3_tpu.pipeline.system import TrackState
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
+from multi_orbslam3_jax.frontend import extractor, stereo
+from multi_orbslam3_jax.pipeline.stereo_system import RGBDSlam, StereoSlam
+from multi_orbslam3_jax.pipeline.system import TrackState
 
 
 def stereo_config():

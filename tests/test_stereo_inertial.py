@@ -5,13 +5,13 @@ branches + the RGBDInertialNode path)."""
 import numpy as np
 import pytest
 
-from multi_orbslam3_tpu import config as cfg
-from multi_orbslam3_tpu.dataio import synthetic
-from multi_orbslam3_tpu.eval import ate
-from multi_orbslam3_tpu.geometry import se3, so3
-from multi_orbslam3_tpu.pipeline.stereo_inertial_system import \
+from multi_orbslam3_jax import config as cfg
+from multi_orbslam3_jax.dataio import synthetic
+from multi_orbslam3_jax.eval import ate
+from multi_orbslam3_jax.geometry import se3, so3
+from multi_orbslam3_jax.pipeline.stereo_inertial_system import \
     StereoInertialSlam
-from multi_orbslam3_tpu.pipeline.system import TrackState
+from multi_orbslam3_jax.pipeline.system import TrackState
 
 
 def si_config():

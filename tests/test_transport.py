@@ -9,7 +9,7 @@ reconnect-on-drop path (the reference relies on roscpp reconnects)."""
 import threading
 import time
 
-from multi_orbslam3_tpu.collab.transport import (SocketTransportClient,
+from multi_orbslam3_jax.collab.transport import (SocketTransportClient,
                                                  SocketTransportServer)
 
 
